@@ -1,6 +1,6 @@
-"""TPU-native visual-inertial SLAM engine.
+"""Visual-inertial SLAM engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 LY-zhang-yi-hao/ORB-SLAM3_byZyh (ORB-SLAM3 V1.0 fork): visual / visual-inertial
 multi-map SLAM for monocular, stereo and RGB-D sensors with pinhole and
 Kannala-Brandt fisheye camera models.

@@ -46,50 +46,65 @@ def example_tracking_args(h: int = 480, w: int = 640, n_lm: int = 4096):
 
 
 def make_tiny_map_state(n_kf: int = 6, n_lm: int = 64, max_obs: int = 4,
-                        stereo_bf: float = 80.0):
-    """Tiny consistent MapState (poses + projected keypoints + stereo rows)
-    for driving the PRODUCTION full-map BA entry point
-    (pipeline.mapping.global_ba) in the multi-chip dry-run."""
+                        stereo_bf: float = 80.0, seed: int = 0):
+    """Consistent synthetic MapState (poses + projected keypoints + stereo
+    rows) for driving the production full-map BA entry point
+    (pipeline.mapping.global_ba), built with array operations so it scales
+    to the runners' capacity (1024 keyframes / 65536 landmarks).
+
+    Keyframes step 5 cm along x looking down +z; landmark l is observed by
+    the ``max_obs`` consecutive keyframes starting at ``l % (n_kf - max_obs
+    + 1)`` and sits in front of them. Each keyframe's keypoint slots hold its
+    observations in landmark order."""
     from .models import map_state as ms
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     fx = fy = 400.0
     cx, cy = 320.0, 240.0
     cam_params = np.array([fx, fy, cx, cy], np.float32)
-    X = np.stack([rng.uniform(-2, 2, n_lm), rng.uniform(-2, 2, n_lm),
-                  rng.uniform(4, 8, n_lm)], -1).astype(np.float32)
-    state = ms.empty_map(n_kf, n_lm, max_obs, n_lm)
-    kfs, lms, obs = state.kfs, state.lms, state.obs
-    obs_kf = np.full((n_lm, max_obs), -1, np.int32)
-    obs_kp = np.full((n_lm, max_obs), -1, np.int32)
-    obs_valid = np.zeros((n_lm, max_obs), bool)
-    kp_xy = np.zeros((n_kf, n_lm, 2), np.float32)
-    kp_ur = np.full((n_kf, n_lm), -1.0, np.float32)
+    n_obs = min(n_kf, max_obs)
+    ts = np.zeros((n_kf, 3), np.float32)
+    ts[:, 0] = -0.05 * np.arange(n_kf)
+    ts[:, 1] = 0.02 * np.sin(0.1 * np.arange(n_kf))
     Rs = np.tile(np.eye(3, dtype=np.float32), (n_kf, 1, 1))
-    ts = np.stack([np.array([-0.3 * k, 0.02 * k, 0], np.float32)
-                   for k in range(n_kf)])
-    for k in range(n_kf):
-        pc = X @ Rs[k].T + ts[k]
-        u = fx * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, 0.5, n_lm)
-        v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, 0.5, n_lm)
-        kp_xy[k] = np.stack([u, v], -1)
-        kp_ur[k] = u - stereo_bf / pc[:, 2]
-    for l in range(n_lm):
-        for o in range(min(n_kf, max_obs)):
-            obs_kf[l, o] = o
-            obs_kp[l, o] = l
-            obs_valid[l, o] = True
-    kfs = kfs._replace(
-        R=jnp.asarray(Rs), t=jnp.asarray(ts),
-        kp_xy=jnp.asarray(kp_xy), kp_ur=jnp.asarray(kp_ur),
-        kp_valid=jnp.ones((n_kf, n_lm), bool),
+    k0 = np.arange(n_lm) % (n_kf - n_obs + 1)
+    obs_kf = (k0[:, None] + np.arange(n_obs)).astype(np.int32)   # (L, O)
+    centre = -ts[k0 + n_obs // 2, 0]
+    X = np.stack([centre + rng.uniform(-1, 1, n_lm), rng.uniform(-2, 2, n_lm),
+                  rng.uniform(4, 8, n_lm)], -1).astype(np.float32)
+    # Keypoint slot of each observation: its rank within the keyframe.
+    flat_kf = obs_kf.reshape(-1)
+    order = np.argsort(flat_kf, kind="stable")
+    first = np.searchsorted(flat_kf[order], np.arange(n_kf))
+    slot = np.empty_like(flat_kf)
+    slot[order] = np.arange(flat_kf.size) - first[flat_kf[order]]
+    n_feat = int(slot.max()) + 1
+    pc = X[:, None, :] + ts[obs_kf]                      # R = I
+    u = fx * pc[..., 0] / pc[..., 2] + cx + rng.normal(0, 0.5, pc.shape[:2])
+    v = fy * pc[..., 1] / pc[..., 2] + cy + rng.normal(0, 0.5, pc.shape[:2])
+    kp_xy = np.zeros((n_kf, n_feat, 2), np.float32)
+    kp_ur = np.full((n_kf, n_feat), -1.0, np.float32)
+    kp_valid = np.zeros((n_kf, n_feat), bool)
+    kp_xy[flat_kf, slot] = np.stack([u, v], -1).reshape(-1, 2)
+    kp_ur[flat_kf, slot] = (u - stereo_bf / pc[..., 2]).reshape(-1)
+    kp_valid[flat_kf, slot] = True
+    max_obs_slots = max(max_obs, n_obs)
+    obs_kf_full = np.full((n_lm, max_obs_slots), -1, np.int32)
+    obs_kp_full = np.full((n_lm, max_obs_slots), -1, np.int32)
+    obs_kf_full[:, :n_obs] = obs_kf
+    obs_kp_full[:, :n_obs] = slot.reshape(n_lm, n_obs)
+    state = ms.empty_map(n_kf, n_lm, max_obs_slots, n_feat)
+    kfs = state.kfs._replace(
+        R=jnp.asarray(Rs), t=jnp.asarray(ts), kp_xy=jnp.asarray(kp_xy),
+        kp_ur=jnp.asarray(kp_ur), kp_valid=jnp.asarray(kp_valid),
         valid=jnp.ones((n_kf,), bool))
-    lms = lms._replace(
+    lms = state.lms._replace(
         pos=jnp.asarray(X + rng.normal(0, 0.01, X.shape).astype(np.float32)),
-        n_obs=jnp.full((n_lm,), min(n_kf, max_obs), jnp.int32),
+        n_obs=jnp.full((n_lm,), n_obs, jnp.int32),
         valid=jnp.ones((n_lm,), bool))
-    obs = obs._replace(kf=jnp.asarray(obs_kf), kp=jnp.asarray(obs_kp),
-                       valid=jnp.asarray(obs_valid))
+    obs = state.obs._replace(kf=jnp.asarray(obs_kf_full),
+                             kp=jnp.asarray(obs_kp_full),
+                             valid=jnp.asarray(obs_kf_full >= 0))
     return ms.MapState(kfs=kfs, lms=lms, obs=obs), jnp.asarray(cam_params), \
         stereo_bf
 

@@ -197,7 +197,7 @@ def covisibility_matrix(state: MapState) -> jnp.ndarray:
     the essential-graph optimizer needs (covisibility edges over all KF
     pairs with weight >= threshold, Optimizer::OptimizeEssentialGraph,
     /root/reference/src/Optimizer.cc:4509 + KeyFrame::UpdateConnections).
-    One (L, K) indicator matmul on the MXU replaces the reference's per-KF
+    One (L, K) indicator matmul replaces the reference's per-KF
     observation-map walks."""
     max_kf = state.kfs.valid.shape[0]
     max_lm = state.lms.pos.shape[0]

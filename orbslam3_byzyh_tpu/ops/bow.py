@@ -1,4 +1,4 @@
-"""Binary bag-of-words place recognition, TPU-native.
+"""Binary bag-of-words place recognition as array operations.
 
 Replaces DBoW2 (/root/reference/Thirdparty/DBoW2: ``TemplatedVocabulary``
 k-ary tree, ``transform`` :1066-1127, L1 ``ScoringObject.cpp:23``) and the
@@ -8,7 +8,7 @@ Design (SURVEY §7.1): the vocabulary is an array-encoded k-ary tree — node
 descriptors ``uint32 (n_nodes, 8)``, children ``int32 (n_nodes, k)``;
 ``transform`` is a batched fixed-depth descent (one Hamming argmin per level
 per keypoint). Image signatures are DENSE tf-idf vectors (n_words,): at
-vocabulary sizes of 1e4 a dense (K, W) @ (W,) matvec on the MXU beats any
+vocabulary sizes of 1e4 a dense (K, W) @ (W,) matvec replaces the
 inverted-file gather, so the inverted file disappears entirely.
 
 The reference's ORBvoc.txt (1e6 nodes, k=10 L=6) is absent from the mount

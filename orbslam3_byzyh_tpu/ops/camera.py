@@ -4,7 +4,7 @@ Replaces the reference's polymorphic ``GeometricCamera`` hierarchy
 (``/root/reference/include/CameraModels/GeometricCamera.h:61-89``,
 ``src/CameraModels/Pinhole.cpp``, ``src/CameraModels/KannalaBrandt8.cpp``).
 
-TPU-first design: instead of virtual dispatch per point, each model is a set of
+Design: instead of virtual dispatch per point, each model is a set of
 pure functions over ``(..., )``-batched arrays, parameterised by a flat
 ``params`` vector. A static ``model_id`` selects the model at trace time — the
 per-frame pipeline is specialised per camera, so there is no runtime dispatch.

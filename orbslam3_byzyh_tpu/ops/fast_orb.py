@@ -1,4 +1,4 @@
-"""TPU-native ORB feature extraction: pyramid FAST + steered BRIEF.
+"""ORB feature extraction: pyramid FAST + steered BRIEF.
 
 Replaces the reference ``ORBextractor`` (/root/reference/src/ORBextractor.cc):
   * ``ComputePyramid`` (:1687)        -> :func:`build_pyramid` (XLA resize chain)
@@ -8,7 +8,8 @@ Replaces the reference ``ORBextractor`` (/root/reference/src/ORBextractor.cc):
   * ``IC_Angle`` (:91)                -> circular-moment convolutions m10/m01
     evaluated densely, sampled at keypoints.
   * ``computeOrbDescriptor`` (:150)    -> batched rotated-pattern gather from
-    the 7x7 sigma=2 Gaussian-blurred level (:1632), packed into uint32 words.
+    the 7x7 sigma=2 Gaussian-blurred level (:1632), packed into uint32 words
+    (:func:`_pattern_positions`, :func:`_pack_bits`).
 
 Behaviour constants from SURVEY.md Appendix A: PATCH=31/HALF=15, EDGE=19,
 FAST radius 3 thresholds 20->7, 8 levels, scale 1.2, geometric per-level
@@ -70,22 +71,6 @@ def _umax_table() -> np.ndarray:
     return umax
 
 
-def _moment_kernels() -> tuple[np.ndarray, np.ndarray]:
-    """31x31 kernels K10 (x*mask) and K01 (y*mask) over the IC_Angle disc."""
-    umax = _umax_table()
-    k10 = np.zeros((PATCH_SIZE, PATCH_SIZE), np.float32)
-    k01 = np.zeros((PATCH_SIZE, PATCH_SIZE), np.float32)
-    for v in range(-HALF_PATCH_SIZE, HALF_PATCH_SIZE + 1):
-        half = umax[abs(v)]
-        for u in range(-half, half + 1):
-            k10[v + HALF_PATCH_SIZE, u + HALF_PATCH_SIZE] = u
-            k01[v + HALF_PATCH_SIZE, u + HALF_PATCH_SIZE] = v
-    return k10, k01
-
-
-_K10, _K01 = _moment_kernels()
-
-
 def _gauss_kernel_1d(ksize: int = 7, sigma: float = 2.0) -> np.ndarray:
     r = np.arange(ksize) - ksize // 2
     k = np.exp(-0.5 * (r / sigma) ** 2)
@@ -140,9 +125,8 @@ def level_feature_budget(n_features: int, n_levels: int, scale: float):
 def _resize_linear(img: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
     """Bilinear resize with host-precomputed indices/weights.
 
-    ``jax.image.resize`` lowers to ops that compile very slowly on the TPU
-    toolchain; two axis-wise lerps with static gather indices compile in <1 s
-    and match cv::resize(INTER_LINEAR) pixel-center semantics.
+    Two axis-wise lerps with static gather indices, matching
+    cv::resize(INTER_LINEAR) pixel-center semantics.
     """
     in_h, in_w = img.shape
 
@@ -250,9 +234,7 @@ def select_keypoints(score: jnp.ndarray, capacity: int, k_per_tile: int = 8):
         k_per_tile *= 2
     k_per_tile = min(k_per_tile, TILE * TILE)
     if k_per_tile <= 16:
-        # Iterative argmax beats the sort-based top_k custom-call for tiny
-        # k (measured: the 8 per-level sorts were 0.46 ms of the 2.7 ms
-        # tracking step; k compare/select sweeps are ~10x cheaper).
+        # Tiny k: k compare/select sweeps instead of a sort-based top_k.
         vals_l, idx_l = [], []
         cols = jax.lax.broadcasted_iota(jnp.int32, tiles.shape, 1)
         remaining = tiles
@@ -284,9 +266,7 @@ def select_keypoints(score: jnp.ndarray, capacity: int, k_per_tile: int = 8):
 def _sep_conv2d(img: jnp.ndarray, k1d: jnp.ndarray) -> jnp.ndarray:
     """Separable 2D convolution with edge padding (Gaussian blur).
 
-    Implemented as shifted elementwise adds instead of conv ops: small-tap
-    convolutions compile ~10 s each on the TPU toolchain while slice+add
-    chains compile in <1 s and fuse into one VPU pass.
+    Implemented as shifted elementwise adds, which XLA fuses into one pass.
     """
     taps = np.asarray(k1d)
     r = len(taps) // 2
@@ -302,22 +282,13 @@ def _sep_conv2d(img: jnp.ndarray, k1d: jnp.ndarray) -> jnp.ndarray:
     return acc
 
 
-def _conv2d_full(img: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
-    r = k.shape[0] // 2
-    x = jnp.pad(img, r, mode="constant")
-    return jax.lax.conv_general_dilated(
-        x[None, None], jnp.asarray(k)[None, None], (1, 1), "VALID",
-        dimension_numbers=("NCHW", "OIHW", "NCHW"))[0, 0]
-
-
 def orientation_maps(img: jnp.ndarray):
     """Dense IC_Angle moments (m10, m01) via row-decomposed prefix sums.
 
-    A direct 31x31 convolution compiles pathologically slowly on the TPU
-    toolchain (~200 s per conv). The circular-disc moments decompose into 31
-    row segments: with row prefix sums C = cumsum(I) and D = cumsum(x*I),
-    each row's segment sum is two shifted differences — O(rows) tiny ops,
-    identical result (IC_Angle :91 parity).
+    The circular-disc moments decompose into 31 row segments: with row
+    prefix sums C = cumsum(I) and D = cumsum(x*I), each row's segment sum is
+    two shifted differences — O(rows) elementwise ops instead of a 31x31
+    convolution, identical result (IC_Angle :91 parity).
     """
     h, w = img.shape
     pad = HALF_PATCH_SIZE + 1
@@ -352,50 +323,6 @@ def orientation_maps(img: jnp.ndarray):
     return m10, m01
 
 
-def compute_descriptors(blurred: jnp.ndarray, xy: jnp.ndarray,
-                        angle: jnp.ndarray) -> jnp.ndarray:
-    """Steered BRIEF at integer keypoint centers.
-
-    blurred: (H, W); xy: (K, 2) float; angle: (K,) radians.
-    Returns (K, 8) uint32. Sampling is nearest (cvRound), clamped at borders
-    (reference guarantees a 19 px margin instead; computeOrbDescriptor :150).
-    """
-    h, w = blurred.shape
-    ca, sa = jnp.cos(angle), jnp.sin(angle)  # (K,)
-    # Reference: row offset = round(px*sin + py*cos), col = round(px*cos - py*sin)
-    def rot(px, py):
-        col = jnp.round(px[None, :] * ca[:, None] - py[None, :] * sa[:, None])
-        row = jnp.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None])
-        return col, row
-
-    ax, ay = rot(PATTERN_AX, PATTERN_AY)   # (K, 256)
-    bx, by = rot(PATTERN_BX, PATTERN_BY)
-    cx = jnp.round(xy[:, 0:1])
-    cy = jnp.round(xy[:, 1:2])
-
-    def sample(ox, oy):
-        gx = jnp.clip(cx + ox, 0, w - 1).astype(jnp.int32)
-        gy = jnp.clip(cy + oy, 0, h - 1).astype(jnp.int32)
-        return blurred.reshape(-1)[gy * w + gx]
-
-    va = sample(ax, ay)
-    vb = sample(bx, by)
-    bits = (va < vb).astype(jnp.float32)           # (K, 256)
-    # Bit packing via unrolled elementwise adds: the natural
-    # multiply-by-powers-reduce formulation compiles pathologically slowly
-    # (minutes) on the TPU toolchain for tiny reduction axes; strided
-    # elementwise adds compile in <1 s and run on the VPU.
-    k = bits.shape[0]
-    byte_vals = jnp.zeros((k, 32), jnp.float32)
-    for j in range(8):
-        byte_vals = byte_vals + bits[:, j::8] * float(2 ** j)
-    b4 = byte_vals.astype(jnp.int32).reshape(k, 8, 4)
-    # int32 wrap-around preserves bits (two's complement); bitcast at the end.
-    words = (b4[..., 0] + b4[..., 1] * 256 + b4[..., 2] * 65536
-             + b4[..., 3] * 16777216)
-    return jax.lax.bitcast_convert_type(words, jnp.uint32)  # (K, 8)
-
-
 def _pattern_positions(xy, angle, w: int, h: int):
     """Global (gy, gx) int32 positions, (K, 512) each, of the rotated BRIEF
     samples (A pattern then B pattern), clipped to the image."""
@@ -418,11 +345,9 @@ def _pattern_positions(xy, angle, w: int, h: int):
 
 
 def _pack_bits(bits: jnp.ndarray) -> jnp.ndarray:
-    """(K, 256) comparison bits -> (K, 8) uint32 words.
-
-    Unrolled strided adds: the multiply-by-powers-reduce formulation
-    compiles pathologically slowly on the TPU toolchain for tiny reduction
-    axes (computeOrbDescriptor :150 packing parity)."""
+    """(K, 256) comparison bits -> (K, 8) uint32 words, bit i of byte j
+    from bits[8 j + i] (computeOrbDescriptor :150 packing parity). int32
+    wrap-around preserves the bits; they are bitcast at the end."""
     k = bits.shape[0]
     byte_vals = jnp.zeros((k, 32), jnp.float32)
     for j in range(8):
@@ -441,19 +366,14 @@ def extract(img: jnp.ndarray, n_features: int = 1024, n_levels: int = 8,
     Returns FrameFeatures with capacity n_features (padded, masked).
 
     All levels' descriptor samples are fetched in ONE gather from a
-    concatenated blurred-pyramid buffer: on TPU a gather op costs ~0.5 ms
-    almost independent of size, so 2 gathers/level (the naive structure) was
-    ~5.5 ms of pure fixed overhead — one fused gather is ~10x faster.
+    concatenated blurred-pyramid buffer instead of one gather per level.
     """
-    from . import pallas_brief
-    use_pallas = pallas_brief.tpu_available()
-
     img = img.astype(jnp.float32)
     pyr = build_pyramid(img, n_levels, scale)
     budget = level_feature_budget(n_features, n_levels, scale)
 
     xs, lvls, angs, resps, valids = [], [], [], [], []
-    blur_flat, idx_all, samples_all = [], [], []
+    blur_flat, idx_all = [], []
     offset = 0
     for lv, lvl_img in enumerate(pyr):
         cap = budget[lv]
@@ -473,20 +393,10 @@ def extract(img: jnp.ndarray, n_features: int = 1024, n_levels: int = 8,
         angle = jnp.arctan2(m01.reshape(-1)[flat], m10.reshape(-1)[flat])
 
         blurred = _sep_conv2d(lvl_img, _GAUSS1D)
-        if use_pallas:
-            # In-kernel pattern rotation + patch-local sampling on-chip
-            # (ops/pallas_brief.py) — the XLA gather alternative costs
-            # ~10 ns/element and the (K, 512) position math another ~2 ms.
-            samples_all.append(pallas_brief.brief_sample(
-                blurred, ix, iy, jnp.cos(angle), jnp.sin(angle),
-                jnp.round(xy[:, 1]), jnp.round(xy[:, 0])))
-        else:
-            gy, gx = _pattern_positions(xy, angle, w, h)
-            # Small levels (or CPU): per-level gather fallback.
-            samples_all.append(None)
-            blur_flat.append(blurred.reshape(-1))
-            idx_all.append(offset + gy * w + gx)
-            offset += h * w
+        gy, gx = _pattern_positions(xy, angle, w, h)
+        blur_flat.append(blurred.reshape(-1))
+        idx_all.append(offset + gy * w + gx)
+        offset += h * w
 
         s = scale ** lv
         xs.append(xy * s)
@@ -495,18 +405,8 @@ def extract(img: jnp.ndarray, n_features: int = 1024, n_levels: int = 8,
         resps.append(resp)
         valids.append(valid)
 
-    # Assemble samples: pallas levels directly, gather levels via ONE fused
-    # gather over their concatenated buffers, merged back in level order.
-    if blur_flat:
-        buf = jnp.concatenate(blur_flat, 0)
-        idx = jnp.concatenate(idx_all, 0)          # (M, 512)
-        gathered = buf[idx]
-        # Split the gathered block back per level (in encounter order).
-        splits = list(np.cumsum([a.shape[0] for a in idx_all])[:-1])
-        parts = jnp.split(gathered, splits, axis=0) if splits else [gathered]
-        it = iter(parts)
-        samples_all = [next(it) if s is None else s for s in samples_all]
-    vals = jnp.concatenate(samples_all, 0)         # (N, 512)
+    # ONE gather over the concatenated blurred levels, in level order.
+    vals = jnp.concatenate(blur_flat, 0)[jnp.concatenate(idx_all, 0)]
     bits = (vals[:, :256] < vals[:, 256:]).astype(jnp.float32)
     desc = _pack_bits(bits)
 

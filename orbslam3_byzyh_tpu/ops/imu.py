@@ -4,7 +4,7 @@ Replaces the reference's ``IMU::Preintegrated``
 (``/root/reference/src/ImuTypes.cc:247-324`` IntegrateNewMeasurement,
 ``:330-…`` MergePrevious, bias-corrected getters ``:360-420``).
 
-TPU-first design: a preintegration window is a fixed-capacity batch of
+Design: a preintegration window is a fixed-capacity batch of
 measurements ``(acc[N,3], gyr[N,3], dt[N])`` with ``dt == 0`` padding — a zero
 ``dt`` step is exactly the identity update, so no masks are needed. The whole
 window integrates in one ``lax.scan``; re-integration after a bias update is

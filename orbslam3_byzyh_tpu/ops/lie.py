@@ -1,14 +1,13 @@
-"""Batched Lie-group operations for TPU: SO(3), SE(3), Sim(3).
+"""Batched Lie-group operations: SO(3), SE(3), Sim(3).
 
 This replaces the reference's vendored Sophus headers
 (``/root/reference/Thirdparty/Sophus/sophus/{so3,se3,sim3}.hpp``) and the IMU
 Lie helpers (``/root/reference/include/ImuTypes.h:254-260`` — ``NormalizeRotation``,
 ``RightJacobianSO3``, ``InverseRightJacobianSO3``, ``Skew``).
 
-Design notes (TPU-first):
+Design notes:
   * Rotations are 3x3 float32 matrices; poses are (R, t) pairs rather than 4x4
-    homogeneous matrices so that XLA keeps the 3x3 blocks in registers and the
-    batched products map onto the MXU when stacked.
+    homogeneous matrices so that XLA keeps the 3x3 blocks in registers.
   * Every function is written for arbitrary leading batch dimensions
     ("``...``" semantics) so the same code serves a single pose and a
     (num_keyframes,)-batched pose array without ``vmap`` overhead.
@@ -24,9 +23,9 @@ import jax.numpy as jnp
 # Threshold under which Taylor expansions replace trig expressions (f32-safe).
 _EPS = 1e-5
 
-# 3x3 geometry matmuls must run at full f32 precision: TPU's default matmul
-# precision is bf16-grade, which is fatal for pose chains. These matrices are
-# tiny, so HIGHEST costs nothing.
+# 3x3 geometry matmuls must run at full f32 precision: a default-precision
+# f32 dot may run in bf16 or TF32 passes, which is fatal for pose chains.
+# These matrices are tiny, so HIGHEST costs nothing.
 _HI = jax.lax.Precision.HIGHEST
 
 

@@ -28,9 +28,8 @@ def hamming_matrix(da: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
     """(N, 8) x (M, 8) uint32 -> (N, M) int32 Hamming distances.
 
     Word-by-word accumulation so XLA fuses per-word (N, M) popcounts instead
-    of materialising an (N, M, 8) cube. Words are bitcast to int32 first:
-    signed lane ops compile fast on the TPU toolchain while several unsigned
-    ops take minutes (xor/popcount are bit-pattern ops, so the cast is free).
+    of materialising an (N, M, 8) cube. Words are bitcast to int32 first
+    (xor/popcount are bit-pattern ops, so the cast is free).
     """
     da = jax.lax.bitcast_convert_type(da, jnp.int32)
     db = jax.lax.bitcast_convert_type(db, jnp.int32)
@@ -129,12 +128,6 @@ def match(da, db, valid_a, valid_b, pair_mask=None, max_dist: int = TH_LOW,
     ``angles`` is an optional (angle_a, angle_b) tuple enabling the rotation
     histogram gate.
     """
-    from . import pallas_match
-    if pair_mask is None and angles is None and pallas_match.tpu_available():
-        best, second, best_j = pallas_match.hamming_best2(
-            da, db, valid_a, valid_b)
-        return _finish_match(best, second, best_j, db.shape[0],
-                             max_dist, ratio, mutual)
     dist = masked_hamming(da, db, valid_a, valid_b, pair_mask)
     best, second, best_j = best_two(dist)
     accept = best <= max_dist
@@ -155,15 +148,7 @@ def match_window(da, db, valid_a, valid_b, xy_a, xy_b, radius,
                  level_a, level_b, level_window=(-8, 8),
                  max_dist: int = TH_LOW, ratio: float = 0.9,
                  mutual: bool = True):
-    """Window-gated match (SearchForInitialization-style, ORBmatcher.cc:735),
-    fused on TPU."""
-    from . import pallas_match
-    if pallas_match.tpu_available():
-        best, second, best_j = pallas_match.hamming_best2(
-            da, db, valid_a, valid_b, xy_a=xy_a, xy_b=xy_b, radius=radius,
-            level_a=level_a, level_b=level_b, level_window=level_window)
-        return _finish_match(best, second, best_j, db.shape[0],
-                             max_dist, ratio, mutual)
+    """Window-gated match (SearchForInitialization-style, ORBmatcher.cc:735)."""
     pm = window_mask(xy_a, xy_b, radius) \
         & level_mask(level_a, level_b, *level_window)
     return match(da, db, valid_a, valid_b, pair_mask=pm, max_dist=max_dist,
@@ -232,17 +217,6 @@ def frustum_cull(R, t, pos, normal, min_dist, max_dist, cam_params,
     return ok, jnp.stack([u, v], -1), dist, level
 
 
-def _finish_match(best, second, best_j, m, max_dist, ratio, mutual):
-    """Shared accept/gate chain after a top-2 reduction."""
-    accept = best <= max_dist
-    if ratio is not None:
-        accept = accept & ratio_test(best, second, ratio)
-    if mutual:
-        accept = mutual_filter_from_best(best, best_j, accept, m)
-    return (jnp.where(accept, best_j, -1),
-            jnp.where(accept, best, INVALID_DIST))
-
-
 def search_by_projection(proj_xy, pred_level, lm_desc, lm_valid,
                          kp_xy, kp_level, kp_desc, kp_valid,
                          radius, max_dist: int = TH_HIGH, ratio: float = 0.9,
@@ -254,14 +228,6 @@ def search_by_projection(proj_xy, pred_level, lm_desc, lm_valid,
     level, candidate keypoints restricted to a level window.
     Returns (match_j, dist) per landmark.
     """
-    from . import pallas_match
-    if pallas_match.tpu_available():
-        best, second, best_j = pallas_match.hamming_best2(
-            lm_desc, kp_desc, lm_valid, kp_valid,
-            xy_a=proj_xy, xy_b=kp_xy, radius=radius,
-            level_a=pred_level, level_b=kp_level, level_window=level_window)
-        return _finish_match(best, second, best_j, kp_xy.shape[0],
-                             max_dist, ratio, mutual=True)
     pm = window_mask(proj_xy, kp_xy, radius)
     pm = pm & level_mask(pred_level, kp_level, *level_window)
     return match(lm_desc, kp_desc, lm_valid, kp_valid, pair_mask=pm,
@@ -274,14 +240,7 @@ def search_epipolar(lines_a, desc_a, valid_a, kp_xy, kp_level, desc_b,
     """Epipolar-gated match for triangulation (SearchForTriangulation,
     ORBmatcher.cc:1046): rows carry their epipolar line in image b; gate is
     squared point-line distance < 3.84 * sigma2(level_b)."""
-    from . import pallas_match
     th_b = 3.84 * sigma2_levels[kp_level]
-    if pallas_match.tpu_available():
-        best, second, best_j = pallas_match.hamming_best2(
-            desc_a, desc_b, valid_a, valid_b,
-            xy_b=kp_xy, lines=lines_a, line_th=th_b)
-        return _finish_match(best, second, best_j, kp_xy.shape[0],
-                             max_dist, ratio, mutual=True)
     num = (lines_a[:, None, 0] * kp_xy[None, :, 0]
            + lines_a[:, None, 1] * kp_xy[None, :, 1]
            + lines_a[:, None, 2]) ** 2

@@ -2,8 +2,8 @@
 
 Replaces the reference's relocalization solvers — ``MLPnPsolver``
 (/root/reference/src/MLPnPsolver.cpp, used by Tracking::Relocalization
-Tracking.cc:5111-5146) and the legacy ``PnPsolver`` (EPnP). TPU-first
-re-design: instead of a sequential RANSAC loop with early exit, ALL
+Tracking.cc:5111-5146) and the legacy ``PnPsolver`` (EPnP). Re-design:
+instead of a sequential RANSAC loop with early exit, ALL
 hypotheses are solved and scored in one vmapped batch (the reference's
 ~300-iteration budget is one tensor op here), then the best is refined by
 the standard motion-only pose optimization.

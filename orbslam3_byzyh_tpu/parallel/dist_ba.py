@@ -2,9 +2,10 @@
 
 The new capability the reference never had (SURVEY §2.3: its parallelism is
 three pthreads + mutexes). Here the landmark axis of the BA problem is sharded
-across TPU devices with ``shard_map``; each device builds its shard's Schur
-contributions (solver/ba.py:schur_pieces), which are ``psum``-reduced over ICI
-into the replicated reduced camera system; the dense (6K, 6K) solve is
+across the devices of a 1-D mesh with ``shard_map``; each device builds its
+shard's Schur contributions (solver/ba.py:schur_pieces), which are
+``psum``-reduced (an all-reduce between the cards) into the replicated
+reduced camera system; the dense (6K, 6K) solve is
 replicated; landmark back-substitution stays shard-local. One round trip of
 (K*K*36 + K*6) floats per iteration — independent of the landmark count.
 """

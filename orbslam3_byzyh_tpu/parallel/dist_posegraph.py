@@ -1,12 +1,12 @@
 """Distributed pose-graph optimization: edge-sharded Gauss-Newton.
 
-The essential-graph/pose-graph solve (solver/pose_graph.py — the TPU
+The essential-graph/pose-graph solve (solver/pose_graph.py — the
 replacement for OptimizeEssentialGraph, /root/reference/src/Optimizer.cc:4509)
 scales with the edge count (covisibility + spanning tree + loop edges), not
 the keyframe count. For multi-host maps the edge set is sharded across the
 device mesh with ``shard_map``: each device linearizes its edge shard and
 scatters block contributions into a full-size (K, K, 7, 7) normal system,
-which one ``psum`` reduces over ICI; the damped solve + retraction stay
+which one ``psum`` all-reduces between the devices; the damped solve + retraction stay
 replicated (K is bounded by the keyframe budget, the solve is tiny next to
 the per-edge autodiff).
 """
@@ -96,7 +96,7 @@ def dist_optimize_pose_graph(R, t, s, edges_i, edges_j, meas_R, meas_t,
         H = H.at[ei, ej].add(Hij)
         H = H.at[ej, ei].add(jnp.swapaxes(Hij, -1, -2))
         b = b.at[ei].add(bi).at[ej].add(bj)
-        # One ICI round trip: the reduced normal system, not the edges.
+        # One all-reduce: the reduced normal system, not the edges.
         H = jax.lax.psum(H, axis)
         b = jax.lax.psum(b, axis)
         cost = jax.lax.psum(cost, axis)

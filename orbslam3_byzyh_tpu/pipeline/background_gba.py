@@ -7,8 +7,8 @@ The reference runs global BA in a detached thread while tracking continues
 spanning tree afterwards (:2940+, using ``mTcwBefGBA`` per keyframe and
 ``mnBAGlobalForKF`` tags per map point).
 
-On a single TPU there is no second device to hide the solve on, so the
-equivalent is *time-slicing*: the solve runs against a SNAPSHOT of the map
+On a single device there is no second device to hide the solve on, so
+the equivalent is *time-slicing*: the solve runs against a SNAPSHOT of the map
 (a ``ba.BAProblem`` captured at loop-correction time) and advances ONE
 Levenberg-Marquardt iteration per tracked frame — each frame pays one
 bounded slice (~one local-BA's worth of device work) instead of one frame

@@ -3,7 +3,7 @@
 Replaces ``KeyFrameDatabase`` (/root/reference/src/KeyFrameDatabase.cc): the
 word->KF inverted file + accumulated-score candidate search
 (``DetectNBestCandidates`` :649, ``DetectRelocalizationCandidates`` :827)
-becomes a dense (K, W) tf-idf matrix scored with one matvec on the MXU
+becomes a dense (K, W) tf-idf matrix scored with one matvec
 (see ops/bow.py design note).
 
 Also hosts SearchByBoW-style matching masks: keypoint pairs are candidates

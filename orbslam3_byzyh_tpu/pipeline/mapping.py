@@ -168,7 +168,7 @@ def local_ba(state: ms.MapState, free_kf: jnp.ndarray, cam_params,
 
     The reference's covisibility-window LocalBundleAdjustment
     (Optimizer.cc:1740) restricts both the KF set and the observation set;
-    on TPU we keep all (masked) observations — extra constraints cost nothing
+    here all (masked) observations stay — extra constraints cost nothing
     once batched, and fixed poses anchor the gauge exactly like its fixed
     "other observers".
     Returns the updated state (+ observation inlier gating applied).
@@ -298,7 +298,7 @@ def global_ba(state: ms.MapState, cam_params, model_id: int = cam.PINHOLE,
 
     ``mesh``: an optional jax.sharding.Mesh — when given, the landmark axis
     is sharded across its devices and the Schur reduction runs through
-    ``parallel.dist_ba`` (psum over ICI); semantics identical to the
+    ``parallel.dist_ba`` (psum all-reduce); semantics identical to the
     single-device path. This is the production entry point of the
     distributed BA (new capability vs the reference, SURVEY §2.3)."""
     free = state.kfs.valid & (

@@ -4,7 +4,7 @@ Replaces ``Optimizer::LocalBundleAdjustment`` (/root/reference/src/Optimizer.cc:
 and ``BundleAdjustment`` (:2832) together with g2o's BlockSolver Schur
 machinery (/root/reference/Thirdparty/g2o/g2o/core/block_solver.h).
 
-TPU-first layout — landmark-major observations:
+Landmark-major observation layout:
   * ``obs_kf   (L, O) int32``  keyframe index per observation slot (-1 empty)
   * ``obs_uv   (L, O, 2)``     measured pixels
   * ``obs_w    (L, O)``        information (inv sigma^2 of the pyramid level)
@@ -13,8 +13,8 @@ TPU-first layout — landmark-major observations:
 Each landmark row is eliminated independently (3x3 inverse), its Schur
 contribution scattered into the dense reduced camera system S (K, K, 6, 6).
 K (window keyframes) is small (<= ~25 + fixed, Optimizer.cc:2210) for local BA
-and a few hundred for global BA, so S stays dense — ideal for the MXU — while
-the landmark axis L is embarrassingly parallel and is the axis sharded across
+and up to the keyframe capacity for global BA, so S stays dense, while the
+landmark axis L is embarrassingly parallel and is the axis sharded across
 devices for distributed BA (see parallel/).
 
 Robust kernel: Huber sqrt(5.991); outlier re-classification between stages
@@ -44,9 +44,8 @@ def _mv(A, v):
 def _inv3x3(A):
     """Closed-form batched 3x3 inverse (adjugate / det).
 
-    jnp.linalg.inv lowers to a LAPACK-style LU loop that costs ~3 ms for
-    (4096, 3, 3) on a v5e — this elementwise form is ~free and runs once
-    per LM iteration on the damped (PSD, det>0) landmark blocks."""
+    Elementwise instead of jnp.linalg.inv's batched LU; runs once per LM
+    iteration on the damped (PSD, det>0) landmark blocks."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -166,17 +165,14 @@ def schur_pieces(obs_kf, sys, lam, n_kf: int):
     bp (K,6), cross (K,K,6,6), corr (K,6); plus the shard-local
     (Hll_inv, has_obs) needed for back-substitution.
 
-    MXU formulation: every segment-sum over the keyframe index runs as a
-    one-hot matmul instead of a scatter-add (TPU scatters serialize; the
-    previous formulation also materialized an (L, O, O, 6, 6) slot-pair
-    tensor and scattered L*O*O blocks — ~25x slower on a v5e). The one-hot
-    E (L, O, K) turns Hpp/bp/corr into single (K x LO)·(LO x d) matmuls and
-    the Schur cross block into cross[k1,k2] = sum_l U[l,k1] V[l,k2]^T with
-    U = E^T·(W Hll_inv), V = E^T·W — an (L-contracted) batched matmul.
+    Sums over the keyframe index are segment sums over the L*O observation
+    slots, and the Schur cross block sums the L*O*O slot-pair products
+    W Hll_inv W^T into their (kf1, kf2) blocks: O(L O^2) work, where a dense
+    one-hot (L, O, K) contraction would cost O(L K^2) and cannot run at the
+    keyframe capacity of a global BA.
     """
     kf = jnp.maximum(obs_kf, 0)                # (L, O)
     L, O = kf.shape
-    dtype = sys["Hll"].dtype
 
     # Damped landmark blocks and their inverses.
     Hll = sys["Hll"]
@@ -188,23 +184,29 @@ def schur_pieces(obs_kf, sys, lam, n_kf: int):
                       jnp.broadcast_to(jnp.eye(3, dtype=Hll.dtype), Hll_d.shape))
     Hll_inv = _inv3x3(Hll_d)                   # (L, 3, 3)
 
-    # One-hot keyframe indicator. Masked observations carry zero weight in
-    # every sys[...] tensor, so the clamped kf index contributes nothing.
-    E = (kf[..., None] == jnp.arange(n_kf)).astype(dtype)     # (L, O, K)
+    # Masked observations carry zero weight in every sys[...] tensor, so
+    # the clamped kf index contributes nothing.
+    seg = kf.reshape(-1)                                    # (L*O,)
 
-    # Pose diagonal blocks and rhs: segment-sums as matmuls.
-    Hpp = jnp.einsum("lok,loij->kij", E, sys["Hpp_o"], precision=_HI)
-    bp = jnp.einsum("lok,loi->ki", E, sys["bp_o"], precision=_HI)
+    def kf_sum(x):
+        return jax.ops.segment_sum(x.reshape(L * O, *x.shape[2:]), seg,
+                                   num_segments=n_kf)
 
-    # Schur cross terms: cross[k1,k2] = sum_l (E^T WHinv)[l,k1] (E^T W)[l,k2]^T.
+    Hpp = kf_sum(sys["Hpp_o"])                              # (K, 6, 6)
+    bp = kf_sum(sys["bp_o"])                                # (K, 6)
+
+    # Schur cross terms: cross[k1,k2] = sum over slot pairs (o1, o2) of a
+    # landmark with kf[o1] = k1, kf[o2] = k2 of (W Hll_inv)[o1] W[o2]^T.
     W = sys["W"]                                # (L, O, 6, 3)
     WHinv = jnp.einsum("loij,ljk->loik", W, Hll_inv, precision=_HI)  # (L,O,6,3)
-    U = jnp.einsum("lok,loij->lkij", E, WHinv, precision=_HI)  # (L,K,6,3)
-    V = jnp.einsum("lok,loij->lkij", E, W, precision=_HI)      # (L,K,6,3)
-    cross = jnp.einsum("lkim,lqjm->kqij", U, V, precision=_HI)  # (K,K,6,6)
+    pair = jnp.einsum("loim,lpjm->lopij", WHinv, W, precision=_HI)  # (L,O,O,6,6)
+    pair_seg = (kf[:, :, None] * n_kf + kf[:, None, :]).reshape(-1)
+    cross = jax.ops.segment_sum(pair.reshape(L * O * O, 6, 6), pair_seg,
+                                num_segments=n_kf * n_kf)
+    cross = cross.reshape(n_kf, n_kf, 6, 6)
 
-    corr_o = jnp.einsum("loik,lk->loi", WHinv, sys["bl"], precision=_HI)
-    corr = jnp.einsum("lok,loi->ki", E, corr_o, precision=_HI)
+    corr = kf_sum(jnp.einsum("loik,lk->loi", WHinv, sys["bl"],
+                             precision=_HI))
     return dict(Hpp=Hpp, bp=bp, cross=cross, corr=corr,
                 Hll_inv=Hll_inv, has_obs=has_obs)
 
@@ -256,8 +258,8 @@ def _retract(R, t, points, dp, dl, fixed):
     Rn = jnp.matmul(dR, R, precision=_HI)
     # One Newton-Schulz step R <- R (3I - R^T R) / 2 re-orthonormalizes the
     # near-orthogonal product (quadratic convergence; input is within float
-    # eps of SO(3) after the exp retraction) — pure matmuls instead of the
-    # batched-SVD projection, which dominates an LM iteration on TPU.
+    # eps of SO(3) after the exp retraction) — pure matmuls instead of a
+    # batched-SVD projection.
     RtR = jnp.matmul(jnp.swapaxes(Rn, -1, -2), Rn, precision=_HI)
     Rn = 0.5 * jnp.matmul(
         Rn, 3.0 * jnp.broadcast_to(jnp.eye(3, dtype=R.dtype), RtR.shape)

@@ -9,7 +9,7 @@ Structure: landmarks are Schur-eliminated exactly as in solver/ba.py (their
 cross terms only touch the 6 pose dims); inertial/bias edges contribute
 15x15 blocks between consecutive keyframes via jacfwd-linearized residuals.
 The reduced system is dense (15K, 15K) — the inertial window is <= tens of
-KFs, global inertial BA a few hundred, both MXU-friendly.
+KFs, global inertial BA a few hundred.
 
 Body-frame states with camera extrinsics Tcb (camera <- body), like
 ``ImuCamPose`` (G2oTypes.h:133) but split: solvers see bodies, the projection

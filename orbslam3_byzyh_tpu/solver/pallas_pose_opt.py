@@ -1,19 +1,19 @@
-"""Fused Pallas TPU kernel for motion-only pose optimization.
+"""Fused Pallas kernel (Triton route) for motion-only pose optimization.
 
 The XLA expression of ``Optimizer::PoseOptimization``
-(/root/reference/src/Optimizer.cc:55-415, solver/pose_opt.py) lowers to ~40
-sequential micro-fusions per frame — each LM iteration is one 6x6 system
-over ~1k points, far too small to amortize XLA op-launch overhead (measured
-~2.7 ms of the 6.6 ms tracking step). This kernel runs the ENTIRE 4x10
-schedule in one Pallas program: points stay resident in VMEM, the pose/LM
-state lives in scalar registers, and each iteration is straight-line
-VPU + scalar code.
+(/root/reference/src/Optimizer.cc:55-415, solver/pose_opt.py) is a chain of
+about 40 dependent LM micro-steps per frame: each iteration builds one 6x6
+system over ~1k points, solves it and re-projects the rotation with a 3x3
+SVD, so the step is bound by kernel launches rather than by arithmetic.
+This kernel runs the ENTIRE 4x10 schedule in one program: the points are
+loaded once into registers (one block, padded to a power of two), the
+normal equations are block reductions, and the pose/LM state is scalars.
 
 Math parity with solver/pose_opt.py (same residuals, Huber weights, Marquardt
 damping, accept/reject rule, per-round chi2 re-classification), with one
 documented deviation: the SO(3) re-projection after retraction uses
-Gram-Schmidt instead of SVD (no linalg inside kernels); for LM-sized steps
-the two agree to float32 precision.
+Gram-Schmidt instead of SVD; for LM-sized steps the two agree to float32
+precision.
 """
 
 from __future__ import annotations
@@ -22,19 +22,22 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 CHI2_MONO = 5.991
-LANES = 128
+MIN_BLOCK = 1024
+N_PARAMS = 16          # R (9) + t (3) + fx, fy, cx, cy
 
 
-def tpu_available() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+def block_size(n: int) -> int:
+    """Points per program: the next power of two >= n, at least 1024."""
+    return max(MIN_BLOCK, 1 << max(n - 1, 0).bit_length())
+
+
+def num_warps(block: int) -> int:
+    """One warp per 256 points: 8 values per thread for each point array."""
+    return max(4, block // 256)
 
 
 # ---------------------------------------------------------------------------
@@ -155,20 +158,25 @@ def _retract(pose, dx):
 # Kernel
 # ---------------------------------------------------------------------------
 
+def _lane(vec, lanes, i):
+    """Scalar element i of a small loaded vector (masked sum: no scalar
+    pointer arithmetic in the kernel)."""
+    return jnp.sum(jnp.where(lanes == i, vec, 0.0))
+
+
 def _kernel_factory(n_rounds: int, n_iters: int):
     def kernel(params_ref, x_ref, y_ref, z_ref, ou_ref, ov_ref, iv2_ref,
                val_ref, pose_out_ref, chi2_out_ref):
-        X = x_ref[:]
-        Y = y_ref[:]
-        Z = z_ref[:]
-        OU = ou_ref[:]
-        OV = ov_ref[:]
-        IV2 = iv2_ref[:]
-        VALID = val_ref[:] > 0.5
-        fx = params_ref[12]
-        fy = params_ref[13]
-        cx = params_ref[14]
-        cy = params_ref[15]
+        lanes = jax.lax.broadcasted_iota(jnp.int32, (N_PARAMS,), 0)
+        params = params_ref[...]
+        X = x_ref[...]
+        Y = y_ref[...]
+        Z = z_ref[...]
+        OU = ou_ref[...]
+        OV = ov_ref[...]
+        IV2 = iv2_ref[...]
+        VALID = val_ref[...]
+        fx, fy, cx, cy = (_lane(params, lanes, 12 + i) for i in range(4))
         delta2 = CHI2_MONO
 
         def point_terms(pose):
@@ -183,65 +191,62 @@ def _kernel_factory(n_rounds: int, n_iters: int):
             chi2 = (ru * ru + rv * rv) * IV2
             return pcx, pcy, pcz, iz, ru, rv, chi2, depth_ok
 
+        def rho_of(chi2, robust: bool):
+            if not robust:
+                return chi2
+            return jnp.where(chi2 <= delta2, chi2,
+                             2.0 * jnp.sqrt(delta2 * chi2) - delta2)
+
         def cost_of(pose, inlier, robust: bool):
-            _, _, _, _, _, _, chi2, depth_ok = point_terms(pose)
-            mask = inlier & VALID & depth_ok
-            if robust:
-                rho = jnp.where(chi2 <= delta2, chi2,
-                                2.0 * jnp.sqrt(delta2 * chi2) - delta2)
-            else:
-                rho = chi2
-            return jnp.sum(jnp.where(mask, rho, 0.0))
+            *_, chi2, depth_ok = point_terms(pose)
+            mask = (inlier > 0.5) & depth_ok
+            return jnp.sum(jnp.where(mask, rho_of(chi2, robust), 0.0))
 
         def build(pose, inlier, robust: bool):
             pcx, pcy, pcz, iz, ru, rv, chi2, depth_ok = point_terms(pose)
-            mask = inlier & VALID & depth_ok
+            mask = (inlier > 0.5) & depth_ok
             if robust:
                 w_rob = jnp.where(chi2 <= delta2, 1.0,
                                   jnp.sqrt(delta2 / jnp.maximum(chi2, 1e-12)))
-                rho = jnp.where(chi2 <= delta2, chi2,
-                                2.0 * jnp.sqrt(delta2 * chi2) - delta2)
             else:
-                w_rob = jnp.ones_like(chi2)
-                rho = chi2
+                w_rob = 1.0
             w = jnp.where(mask, w_rob * IV2, 0.0)
-            cost = jnp.sum(jnp.where(mask, rho, 0.0))
-
             # J rows (2 x 6 per point), analytic pinhole
             # (pose_opt._residuals_mono): J = -Jproj @ [I | -skew(pc)].
             a = fx * iz
             b = -fx * pcx * iz * iz
             c = fy * iz
             d = -fy * pcy * iz * iz
-            Ju = [-a, jnp.zeros_like(a), -b,
-                  -(b * pcy), -(a * pcz - b * pcx), a * pcy]
-            Jv = [jnp.zeros_like(c), -c, -d,
-                  -(-c * pcz + d * pcy), d * pcx, -c * pcx]
+            Ju = [-a, None, -b, -(b * pcy), -(a * pcz - b * pcx), a * pcy]
+            Jv = [None, -c, -d, -(-c * pcz + d * pcy), d * pcx, -c * pcx]
+
+            def dot(p, q):
+                return 0.0 if p is None or q is None else p * q
+
             H = [[None] * 6 for _ in range(6)]
             for i in range(6):
                 for j in range(i, 6):
-                    H[i][j] = jnp.sum(w * (Ju[i] * Ju[j] + Jv[i] * Jv[j]))
+                    H[i][j] = jnp.sum(w * (dot(Ju[i], Ju[j])
+                                           + dot(Jv[i], Jv[j])))
                     H[j][i] = H[i][j]
-            g = [jnp.sum(w * (Ju[i] * ru + Jv[i] * rv)) for i in range(6)]
-            # pose_opt build returns -b; the solve uses that directly.
-            g = [-gi for gi in g]
-            return H, g, cost
+            # pose_opt's build returns -b; the solve uses that directly.
+            g = [-jnp.sum(w * (dot(Ju[i], ru) + dot(Jv[i], rv)))
+                 for i in range(6)]
+            return H, g
 
-        # ---- 4 rounds x n_iters LM, inlier re-classification per round ----
-        pose = [params_ref[i] for i in range(12)]
+        # ---- n_rounds x n_iters LM, inlier re-classification per round ----
+        pose = [_lane(params, lanes, i) for i in range(12)]
         inlier = VALID
         for rnd in range(n_rounds):
             robust = rnd < n_rounds - 1
-            cost0 = cost_of(pose, inlier, robust)
-            lam = jnp.float32(1e-3)
-            st = tuple(pose) + (lam, cost0)
+            st = tuple(pose) + (jnp.float32(1e-3),
+                                cost_of(pose, inlier, robust))
 
             def body(_, st, inl=inlier, rob=robust):
                 pose_c = list(st[:12])
                 lam_c, cost_c = st[12], st[13]
-                H, g, _ = build(pose_c, inl, rob)
-                dx = _chol_solve6(H, g, lam_c)
-                pose_n = _retract(pose_c, dx)
+                H, g = build(pose_c, inl, rob)
+                pose_n = _retract(pose_c, _chol_solve6(H, g, lam_c))
                 cost_n = cost_of(pose_n, inl, rob)
                 accept = cost_n < cost_c
                 pose_o = [jnp.where(accept, pose_n[i], pose_c[i])
@@ -252,14 +257,16 @@ def _kernel_factory(n_rounds: int, n_iters: int):
 
             st = jax.lax.fori_loop(0, n_iters, body, st)
             pose = list(st[:12])
-            _, _, _, _, _, _, chi2, depth_ok = point_terms(pose)
+            *_, chi2, depth_ok = point_terms(pose)
             chi2 = jnp.where(depth_ok, chi2, 1e9)
-            inlier = (chi2 <= delta2) & VALID
+            inlier = jnp.where((chi2 <= delta2) & (VALID > 0.5), 1.0, 0.0)
 
-        _, _, _, _, _, _, chi2, depth_ok = point_terms(pose)
-        chi2_out_ref[:] = jnp.where(depth_ok, chi2, 1e9)
+        *_, chi2, depth_ok = point_terms(pose)
+        chi2_out_ref[...] = jnp.where(depth_ok, chi2, 1e9)
+        out = jnp.zeros((N_PARAMS,), jnp.float32)
         for i in range(12):
-            pose_out_ref[i] = pose[i]   # SMEM: scalar stores allowed
+            out = jnp.where(lanes == i, pose[i], out)
+        pose_out_ref[...] = out
 
     return kernel
 
@@ -271,42 +278,35 @@ def pose_optimization_fused(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
                             interpret: bool = False):
     """Drop-in device path for pose_opt.pose_optimization (PINHOLE only).
 
-    Returns (R, t, inlier, n_inliers, chi2) with the same semantics.
+    One program (grid of 1) per frame. Returns (R, t, inlier, n_inliers,
+    chi2) with the same semantics.
     """
     n = pts_w.shape[0]
-    rows = -(-n // LANES)
-    rows = -(-rows // 8) * 8           # sublane-aligned
-    pad = rows * LANES - n
+    block = block_size(n)
 
-    def shape(v, fill=0.0):
-        v = jnp.pad(v.astype(jnp.float32), (0, pad), constant_values=fill)
-        return v.reshape(rows, LANES)
-
-    Xs = shape(pts_w[:, 0])
-    Ys = shape(pts_w[:, 1])
-    Zs = shape(pts_w[:, 2])
-    OU = shape(obs_uv[:, 0])
-    OV = shape(obs_uv[:, 1])
-    IV2 = shape(inv_sigma2)
-    VAL = shape(valid.astype(jnp.float32))
+    def lane_pad(v, fill=0.0):
+        return jnp.pad(v.astype(jnp.float32), (0, block - n),
+                       constant_values=fill)
 
     params = jnp.concatenate([
         R0.reshape(9).astype(jnp.float32), t0.astype(jnp.float32),
         cam_params[:4].astype(jnp.float32)])
-
     pose_out, chi2_out = pl.pallas_call(
         _kernel_factory(n_rounds, n_iters),
-        out_shape=(jax.ShapeDtypeStruct((12,), jnp.float32),
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.float32)),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] +
-                 [pl.BlockSpec(memory_space=pltpu.VMEM)] * 7,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.SMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
+        out_shape=(jax.ShapeDtypeStruct((N_PARAMS,), jnp.float32),
+                   jax.ShapeDtypeStruct((block,), jnp.float32)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=num_warps(block), num_stages=1),
         interpret=interpret,
-    )(params, Xs, Ys, Zs, OU, OV, IV2, VAL)
+        name="pose_opt_fused",
+    )(params, lane_pad(pts_w[:, 0]), lane_pad(pts_w[:, 1]),
+      lane_pad(pts_w[:, 2], 1.0), lane_pad(obs_uv[:, 0]),
+      lane_pad(obs_uv[:, 1]), lane_pad(inv_sigma2),
+      lane_pad(valid))
 
     R = pose_out[:9].reshape(3, 3)
     t = pose_out[9:12]
-    chi2 = chi2_out.reshape(-1)[:n]
+    chi2 = chi2_out[:n]
     inlier = (chi2 <= CHI2_MONO) & valid
     return R, t, inlier, inlier.sum(), chi2

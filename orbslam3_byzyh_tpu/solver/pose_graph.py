@@ -10,8 +10,8 @@ as the relative Sim3 S_i * S_j^{-1} at graph-build time; residual
 r = log_sim3(M_ij^{-1} * S_i * S_j^{-1}) — zero iff the relative pose is
 preserved. Per-edge (7, 14) Jacobians come from jax.jacfwd on the tangent
 perturbation (analytic enough at these sizes), assembled into a dense
-(7K, 7K) Gauss-Newton system: pose graphs are a few hundred KFs, so the MXU
-eats the dense solve; no sparse machinery needed.
+(7K, 7K) Gauss-Newton system: pose graphs are at most the keyframe
+capacity, so a dense solve does; no sparse machinery needed.
 
 DoF control: ``dof_mask`` zeroes tangent dims — [1]*7 = full Sim3 (mono loop
 closing), scale off = SE3 (stereo/inertial), 4-DoF yaw+t for the inertial

@@ -24,13 +24,20 @@ import jax.numpy as jnp
 
 from ..ops import camera as cam
 from ..ops import lie
-from . import lm
+from . import lm, pallas_pose_opt
 
 _HI = jax.lax.Precision.HIGHEST
 
 
 def _mv(A, v):
     return jnp.einsum("...ij,...j->...i", A, v, precision=_HI)
+
+
+def use_fused_kernel(platform: str, model_id: int) -> bool:
+    """Whether :func:`pose_optimization` runs the fused Triton kernel
+    (solver/pallas_pose_opt.py): on a GPU, for the pinhole model it
+    implements. Everything else takes the XLA path."""
+    return platform == "gpu" and model_id == cam.PINHOLE
 
 
 class PoseOptResult(NamedTuple):
@@ -78,7 +85,6 @@ def _residuals_stereo(R, t, pts_w, obs_uv, obs_ur, bf, cam_params, model_id):
     return r, J, depth_ok, has_ur
 
 
-@functools.partial(jax.jit, static_argnames=("model_id", "n_rounds", "n_iters"))
 def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
                       cam_params, model_id: int = cam.PINHOLE,
                       n_rounds: int = 4, n_iters: int = 10) -> PoseOptResult:
@@ -86,16 +92,28 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
 
     R0, t0: initial Tcw. pts_w: (N, 3) world points. obs_uv: (N, 2) pixels.
     inv_sigma2: (N,) observation information (per pyramid level). valid: (N,).
+    Runs the fused kernel where :func:`use_fused_kernel` says so, else
+    :func:`pose_optimization_xla`.
     """
-    from . import pallas_pose_opt
-    if model_id == cam.PINHOLE and pallas_pose_opt.tpu_available():
-        # One fused kernel for the whole 4x10 schedule (HOT: the XLA
-        # lowering is ~40 sequential micro-steps per frame).
+    if use_fused_kernel(jax.default_backend(), model_id):
+        # One fused kernel for the whole 4x10 schedule (the XLA lowering is
+        # ~40 dependent micro-steps per frame).
         R, t, inlier, n_inl, chi2 = pallas_pose_opt.pose_optimization_fused(
             R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
             n_rounds=n_rounds, n_iters=n_iters)
         return PoseOptResult(R=R, t=t, inlier=inlier, n_inliers=n_inl,
                              chi2=chi2)
+    return pose_optimization_xla(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
+                                 cam_params, model_id=model_id,
+                                 n_rounds=n_rounds, n_iters=n_iters)
+
+
+@functools.partial(jax.jit, static_argnames=("model_id", "n_rounds", "n_iters"))
+def pose_optimization_xla(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
+                          cam_params, model_id: int = cam.PINHOLE,
+                          n_rounds: int = 4, n_iters: int = 10
+                          ) -> PoseOptResult:
+    """:func:`pose_optimization` as plain XLA ops (every camera model)."""
     delta2 = lm.CHI2_MONO
 
     def chi2_of(R, t):
@@ -133,10 +151,7 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
         lam = jnp.asarray(1e-3, jnp.float32)
 
         # Statically unrolled LM iterations: each step is tiny (one 6x6
-        # system over ~1k points), so TPU while-loop boundary overhead
-        # (~50us/iter) dominates a lax loop — straight-line code removes it
-        # (measured: 4x10 fori_loop rounds = 2.65 ms/frame of the 6.6 ms
-        # tracking step).
+        # system over ~1k points), straight-line code.
         st = ((R, t), lam, cost0)
         for _ in range(n_iters):
             st = lm.lm_step(st[0], st[1], st[2], build, retract)

@@ -2,7 +2,7 @@
 
 Replaces the Pangolin GL viewer stack (/root/reference/src/Viewer.cc,
 MapDrawer.cc, FrameDrawer.cc) with matplotlib renderings that can be saved
-per frame or at shutdown: the live GL loop has no place in a headless TPU
+per frame or at shutdown: the live GL loop has no place in a headless
 deployment, and the fork itself ships offline matplotlib visualizers
 (Scripts/Output_Process/visualize_trajectory.py) as its practical surface.
 

@@ -13,8 +13,8 @@ efficiency:
 On this environment's virtual CPU mesh the N logical devices share C=2
 physical cores, so ideal-machine efficiency is bounded by C/N; the
 ``efficiency_vs_cores`` number is the honest figure there (the per-shard
-compute split is real, the extra silicon is not). On a real multi-chip TPU
-mesh the two numbers coincide.
+compute split is real, the extra silicon is not). On a mesh of real GPUs
+the two numbers coincide.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
@@ -32,8 +32,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, nargs="*", default=None)
     ap.add_argument("--iters", type=int, default=3)
@@ -44,10 +42,8 @@ def main():
 
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "..", ".jax_cache"))
+    from orbslam3_byzyh_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import numpy as np
 

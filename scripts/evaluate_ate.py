@@ -37,8 +37,6 @@ def load(path):
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("ground_truth")
     ap.add_argument("estimate")

@@ -24,8 +24,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     import numpy as np
 
     from orbslam3_byzyh_tpu.io import trajectory

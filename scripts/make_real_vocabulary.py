@@ -100,8 +100,6 @@ def augmented_views(img, n_views, rng, w=640, h=480):
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("output")
     ap.add_argument("--views-per-image", type=int, default=250)

@@ -24,8 +24,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("output", nargs="?",
                     default="vocabulary/synthetic_voc_10k.npz")
@@ -40,10 +38,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "..", ".jax_cache"))
+    from orbslam3_byzyh_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from orbslam3_byzyh_tpu.ops import bow, fast_orb
     from synth_world import SynthWorld

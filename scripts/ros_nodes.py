@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""ROS wrapper nodes for the TPU-native SLAM engine.
+"""ROS wrapper nodes for the SLAM engine.
 
 Parity with the reference's optional ROS examples
 (/root/reference/Examples/ROS/ORB_SLAM3/src/{ros_mono,ros_mono_inertial,

@@ -36,8 +36,6 @@ def _default_vocabulary():
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("settings")
     ap.add_argument("sequence", nargs="+")

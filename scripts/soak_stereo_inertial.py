@@ -44,8 +44,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--duration", type=float, default=180.0)
     ap.add_argument("--fps", type=float, default=10.0)
@@ -71,13 +69,10 @@ def main():
                          "close through place recognition (EMERGENT loop).")
     args = ap.parse_args()
 
-    import jax
     import numpy as np
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     ".jax_cache"))
+    from orbslam3_byzyh_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from orbslam3_byzyh_tpu.ops import bow
     from orbslam3_byzyh_tpu.pipeline.inertial_system import ImuConfig

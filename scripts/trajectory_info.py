@@ -12,8 +12,6 @@ import numpy as np
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("trajectory")
     args = ap.parse_args()

@@ -29,8 +29,6 @@ def load_tum(path):
 
 
 def main():
-    from orbslam3_byzyh_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("trajectory")
     ap.add_argument("keyframes", nargs="?", default=None)

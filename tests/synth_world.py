@@ -1,20 +1,21 @@
 """Synthetic rendered world for end-to-end SLAM tests.
 
-Renders a random 3D point field as small textured blobs with OpenCV; camera
-follows a smooth trajectory. Ground-truth poses let tests score ATE without
+Renders a random 3D point field as small textured blobs (numpy rasterizer,
+tests/raster.py); camera follows a smooth trajectory. Ground-truth poses let tests score ATE without
 any external dataset (EuRoC is not available in this environment).
 """
 
 from __future__ import annotations
 
-import cv2
 import numpy as np
+
+import raster
 
 
 class SynthWorld:
     def __init__(self, seed=0, n_points=2500, w=640, h=480,
                  fx=400.0, fy=400.0, motion="default", subpix=False):
-        # subpix: draw blobs with 1/16-pixel centers (cv2 shift=4).
+        # subpix: draw anti-aliased blobs with 1/16-pixel centers.
         # Integer-quantized centers make descriptors flicker frame to
         # frame, which collapses ref-KF matches and forces a keyframe
         # every ~1.5 frames — an order of magnitude denser than EuRoC's
@@ -189,6 +190,8 @@ class SynthWorld:
         return ts, gyr.astype(np.float32), acc.astype(np.float32)
 
     def render(self, t: float) -> np.ndarray:
+        """(h, w) float32 frame at time t: blobs drawn far to near over a
+        flat background, then a 3x3 Gaussian blur (tests/raster.py)."""
         R, tt = self.pose(t)
         pc = self.pts @ R.T + tt
         z = pc[:, 2]
@@ -196,7 +199,6 @@ class SynthWorld:
         u = self.fx * pc[:, 0] / np.maximum(z, 1e-6) + self.cx
         v = self.fy * pc[:, 1] / np.maximum(z, 1e-6) + self.cy
         img = np.full((self.h, self.w), 30, np.uint8)
-        # Low-frequency background so FAST doesn't fire on pure noise.
         order = np.argsort(-z)  # far first, near drawn on top
         if self.subpix:
             # 1/16-pixel geometry (stable descriptors across frames).
@@ -208,17 +210,16 @@ class SynthWorld:
                 if not (-10 <= uf < self.w + 10 and -10 <= vf < self.h + 10):
                     continue
                 rf = max(3.0, self.sizes[i] * 8.0 / z[i])
-                val = int(self.intens[i])
-                ui, vi = int(round(uf * S)), int(round(vf * S))
                 r16 = int(round(rf * S))
-                cv2.circle(img, (ui, vi), r16, val, -1, cv2.LINE_AA, 4)
+                raster.fill_circle_aa(img, int(round(uf * S)),
+                                      int(round(vf * S)), r16,
+                                      int(self.intens[i]))
                 for s in range(4):
                     su = int(round((uf + self.sat_off[i, s, 0] * rf) * S))
                     sv = int(round((vf + self.sat_off[i, s, 1] * rf) * S))
-                    cv2.circle(img, (su, sv), max(S, r16 // 3),
-                               int(self.sat_int[i, s]), -1, cv2.LINE_AA, 4)
-            img = cv2.GaussianBlur(img, (3, 3), 0.8)
-            return img.astype(np.float32)
+                    raster.fill_circle_aa(img, su, sv, max(S, r16 // 3),
+                                          int(self.sat_int[i, s]))
+            return raster.gaussian_blur3(img).astype(np.float32)
         for i in order:
             if not vis[i]:
                 continue
@@ -228,17 +229,15 @@ class SynthWorld:
             r = max(3, int(round(self.sizes[i] * 8.0 / z[i])))
             val = int(self.intens[i])
             if self.shapes[i] == 0:
-                cv2.circle(img, (ui, vi), r, val, -1)
+                raster.paint(img, raster.circle_mask(r), ui, vi, val)
             elif self.shapes[i] == 1:
-                cv2.rectangle(img, (ui - r, vi - r), (ui + r, vi + r), val, -1)
+                raster.fill_rect(img, ui - r, vi - r, ui + r, vi + r, val)
             else:
-                pts = np.array([[ui, vi - r], [ui - r, vi + r], [ui + r, vi + r]])
-                cv2.fillConvexPoly(img, pts, val)
+                raster.paint(img, raster.triangle_mask(r), ui, vi, val)
             # Satellites scale with the blob (attached to the same 3D point).
             for s in range(4):
                 su = int(round(ui + self.sat_off[i, s, 0] * r))
                 sv = int(round(vi + self.sat_off[i, s, 1] * r))
-                cv2.circle(img, (su, sv), max(1, r // 3),
-                           int(self.sat_int[i, s]), -1)
-        img = cv2.GaussianBlur(img, (3, 3), 0.8)
-        return img.astype(np.float32)
+                raster.paint(img, raster.circle_mask(max(1, r // 3)), su, sv,
+                             int(self.sat_int[i, s]))
+        return raster.gaussian_blur3(img).astype(np.float32)

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import numpy_ref
 from orbslam3_byzyh_tpu.ops import fast_orb
 
 
@@ -150,3 +151,42 @@ class TestPyramid:
         b = fast_orb.level_feature_budget(1024, 8, 1.2)
         assert sum(b) == 1024
         assert b[0] > b[1] > b[7]
+
+
+def _keypoints(rng, case, h, w):
+    """Level-local keypoints for the BRIEF cases."""
+    if case == "interior":
+        k = 96
+        return np.stack([rng.uniform(22, w - 23, k),
+                         rng.uniform(22, h - 23, k)], -1)
+    if case == "border":
+        # Within the 15 px pattern radius of an image edge: samples clamp.
+        xs = np.concatenate([rng.uniform(0, 18, 24),
+                             rng.uniform(w - 19, w - 1, 24),
+                             rng.uniform(0, w - 1, 48)])
+        ys = np.concatenate([rng.uniform(0, h - 1, 48),
+                             rng.uniform(0, 18, 24),
+                             rng.uniform(h - 19, h - 1, 24)])
+        return np.stack([xs, ys], -1)
+    # Astride multiples of 128 columns (tile edges of a lane-tiled layout).
+    xs = np.concatenate([b + np.array([-18, -5, -1, 0, 4, 18])
+                         for b in (128, 256, 384, 512)]).astype(np.float64)
+    return np.stack([xs, rng.uniform(25, h - 25, len(xs))], -1)
+
+
+@pytest.mark.parametrize("case", ["interior", "border", "tile_edges"])
+def test_brief_matches_numpy(rng, case):
+    """extract's sampling (_pattern_positions + one gather + _pack_bits)
+    equals a numpy steered-BRIEF, bit for bit."""
+    h, w = 240, 640
+    blurred = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    xy = np.round(_keypoints(rng, case, h, w)).astype(np.float32)
+    angle = rng.uniform(-np.pi, np.pi, len(xy)).astype(np.float32)
+    gy, gx = fast_orb._pattern_positions(jnp.asarray(xy), jnp.asarray(angle),
+                                         w, h)
+    vals = jnp.asarray(blurred).reshape(-1)[gy * w + gx]
+    desc = np.asarray(fast_orb._pack_bits(
+        (vals[:, :256] < vals[:, 256:]).astype(jnp.float32)))
+    ref, ambiguous = numpy_ref.brief(blurred, xy, angle)
+    assert ambiguous.mean() < 0.1
+    np.testing.assert_array_equal(desc[~ambiguous], ref[~ambiguous])

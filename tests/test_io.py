@@ -12,20 +12,22 @@ from orbslam3_byzyh_tpu.ops import lie
 from test_atlas import fill_map
 
 
+CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
+
+
 class TestSettings:
     def test_euroc_mono_yaml(self):
-        s = settings.load_settings(
-            "/root/reference/Examples/Monocular/EuRoC.yaml")
+        s = settings.load_settings(os.path.join(CONFIGS, "EuRoC_mono.yaml"))
         assert s.cam1.model == "PinHole"
         np.testing.assert_allclose(
             s.cam1.params, [458.654, 457.296, 367.215, 248.375], rtol=1e-5)
         assert s.cam1.dist is not None
-        assert s.orb.n_features == 1000
+        assert s.orb.n_features == 1200
         assert s.fps == 20.0
 
     def test_tumvi_kb8_yaml(self):
         s = settings.load_settings(
-            "/root/reference/Examples/Monocular-Inertial/TUM_512.yaml")
+            os.path.join(CONFIGS, "TUM-VI_512_mono_inertial.yaml"))
         assert s.cam1.model == "KannalaBrandt8"
         assert len(s.cam1.params) == 8
         assert s.imu is not None
@@ -209,8 +211,7 @@ ZHeight: 0.5
         assert (cb.start_x, cb.start_y, cb.z_height) == (0.1, 0.2, 0.5)
 
     def test_chessboard_absent_by_default(self):
-        s = settings.load_settings(
-            "/root/reference/Examples/Monocular/EuRoC.yaml")
+        s = settings.load_settings(os.path.join(CONFIGS, "EuRoC_mono.yaml"))
         assert s.chessboard is None
 
 

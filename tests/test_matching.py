@@ -2,7 +2,9 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
+import numpy_ref
 from orbslam3_byzyh_tpu.ops import matching
 
 
@@ -125,3 +127,73 @@ class TestGuidedSearch:
             radius=5.0, level_window=(0, 0))
         mj = np.asarray(mj)
         assert (mj == idx).mean() > 0.9
+
+
+def _related_descs(rng, n, m, n_true):
+    """a: random; b: noisy copies of n_true rows of a, then random rows."""
+    a = rand_desc(rng, n)
+    b = rand_desc(rng, m)
+    src = rng.choice(n, n_true, replace=False)
+    b[:n_true] = a[src]
+    bits = b[:n_true].view(np.uint8)
+    for i in range(n_true):
+        flips = rng.choice(256, rng.integers(0, 60), replace=False)
+        np.bitwise_xor.at(bits[i], flips // 8,
+                          (1 << (flips % 8)).astype(np.uint8))
+    return a, b, src
+
+
+@pytest.mark.parametrize("mode", ["plain", "window", "epipolar"])
+def test_plain_matcher_matches_numpy(rng, mode):
+    """The XLA matcher equals a numpy brute-force top-2 + ratio + mutual
+    filter, integer distances exactly."""
+    n, m = 300, 260
+    da, db, src = _related_descs(rng, n, m, 200)
+    va, vb = rng.random(n) > 0.05, rng.random(m) > 0.05
+    xy_a = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    xy_b = rng.uniform(0, 640, (m, 2)).astype(np.float32)
+    lvl_a = rng.integers(0, 8, n).astype(np.int32)
+    lvl_b = rng.integers(0, 8, m).astype(np.int32)
+    # True pairs sit near each other, on neighbouring pyramid levels.
+    xy_b[:200] = xy_a[src] + rng.normal(0, 10, (200, 2))
+    lvl_b[:200] = np.clip(lvl_a[src] + rng.integers(-1, 2, 200), 0, 7)
+    dist = numpy_ref.hamming(da, db)
+    J = jnp.asarray
+    if mode == "plain":
+        mj, md = matching.match(J(da), J(db), J(va), J(vb))
+        ref = numpy_ref.match(numpy_ref.masked(dist, va, vb),
+                              matching.TH_LOW, 0.9)
+    elif mode == "window":
+        radius = rng.uniform(40, 200, n).astype(np.float32)
+        mj, md = matching.search_by_projection(
+            J(xy_a), J(lvl_a), J(da), J(va), J(xy_b), J(lvl_b), J(db), J(vb),
+            J(radius))
+        pm = numpy_ref.window_level_mask(xy_a, xy_b, radius, lvl_a, lvl_b,
+                                         -1, 1)
+        ref = numpy_ref.match(numpy_ref.masked(dist, va, vb, pm),
+                              matching.TH_HIGH, 0.9)
+    else:
+        F = rng.normal(0, 1e-3, (3, 3)).astype(np.float32)
+        lines = (np.concatenate([xy_a, np.ones((n, 1), np.float32)], -1)
+                 @ F.T).astype(np.float32)
+        # Move the true partners onto (near) their epipolar lines.
+        ln = lines[src].astype(np.float64)
+        off = (ln[:, :2] * xy_b[:200]).sum(-1) + ln[:, 2]
+        xy_b[:200] -= (off / (ln[:, :2] ** 2).sum(-1))[:, None] * ln[:, :2]
+        xy_b[:200] += rng.normal(0, 0.5, (200, 2))
+        sigma2 = (1.2 ** (2 * np.arange(8))).astype(np.float32)
+        mj, md = matching.search_epipolar(
+            J(lines), J(da), J(va), J(xy_b), J(lvl_b), J(db), J(vb),
+            J(sigma2))
+        th = np.float32(3.84) * sigma2[lvl_b]
+        num = (lines[:, None, 0] * xy_b[None, :, 0]
+               + lines[:, None, 1] * xy_b[None, :, 1]
+               + lines[:, None, 2]) ** 2
+        den = np.maximum(lines[:, 0] ** 2 + lines[:, 1] ** 2,
+                         np.float32(1e-12))[:, None]
+        ref = numpy_ref.match(numpy_ref.masked(dist, va, vb,
+                                               (num / den) < th[None, :]),
+                              matching.TH_LOW, 0.8)
+    np.testing.assert_array_equal(np.asarray(mj), ref[0])
+    np.testing.assert_array_equal(np.asarray(md), ref[1])
+    assert (ref[0] >= 0).sum() > 20      # the case exercises real matches

@@ -2,8 +2,7 @@
 
 Thin pytest wrapper over scripts/soak_stereo_inertial.py — the >=180 s
 orbit sequence with flat-latency / loop-closed / ATE gates. Tens of minutes
-on this host, so it lives in the ``soak`` tier (run with ``-m soak``; the
-committed evidence of a full run is bench_artifacts/soak_r04.json).
+on a CPU host, so it lives in the ``soak`` tier (run with ``-m soak``).
 """
 
 import json
